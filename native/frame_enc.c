@@ -3,7 +3,7 @@
  * Counterpart of the reference's Encode Pass + entropy process
  * (Source/Lib/Codec/coding_loop.c:1697 svt_aom_encode_decode,
  *  Source/Lib/Codec/ec_process.c:208 entropy_coding_kernel), redesigned
- * for this framework's split: the TPU produces per-block decisions
+ * for this framework's split: the device produces per-block decisions
  * (modes, partitions, full-pel MVs); this file executes the *conformant*
  * per-frame tail at native speed — intra prediction from recon
  * neighbors, sub-pel refinement + 8-tap MC, exact fwd/inv transforms,

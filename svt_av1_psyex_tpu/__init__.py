@@ -1,11 +1,12 @@
-"""svt_av1_psyex_tpu — a TPU-native AV1 encoder framework.
+"""svt_av1_psyex_tpu — an AV1 encoder framework in JAX.
 
 A from-scratch rebuild of the capability surface of SVT-AV1-PSYEX
-(reference: /root/reference, C99 + x86/ARM SIMD) redesigned for TPU:
+(reference: C99 + x86/ARM SIMD) redesigned for an accelerator:
 
 * device compute path (transforms, quant, prediction, ME/SAD pyramids,
-  in-loop filter searches, psy metrics) in JAX / Pallas, batched over all
-  superblocks of a frame instead of the reference's wavefront threads;
+  in-loop filter searches, psy metrics) in JAX, compiled by XLA and
+  batched over all superblocks of a frame instead of the reference's
+  wavefront threads;
 * host runtime (entropy coding, OBU assembly, rate control, GOP logic,
   pipeline) in Python + C;
 * public API shaped after EbSvtAv1Enc.h (svt_av1_enc_init_handle /
@@ -14,13 +15,13 @@ A from-scratch rebuild of the capability surface of SVT-AV1-PSYEX
 
 Layout:
   bitstream/   OBU framing, AV1 range coder, CDF models, syntax writers
-  ops/         device kernels: jnp spec-exact references + Pallas kernels
+  ops/         spec-exact numpy references + jnp device kernels
+  device/      whole-frame device analysis programs (jitted)
   codec/       encoder algorithms: partitioning, mode decision, recon loop
   api/         EbSvtAv1Enc-shaped public API + configuration
   app/         SvtAv1EncApp-shaped CLI (y4m/yuv in, IVF out)
-  parallel/    jax.sharding meshes: multi-chip frame/tile parallelism
   utils/       y4m/IVF I/O, logging, timing
-  conformance/ mirror decoder + dav1d harness (test oracle)
+  conformance/ dav1d and libaom harnesses (test oracles)
   native/      C sources (dav1d shim, host entropy fast path)
 """
 

@@ -173,7 +173,7 @@ class EncoderConfig:
     level_of_parallelism: int = 0
     pin_threads: int = 0
     target_socket: int = -1
-    use_cpu_flags: int = -1  # asm level; TPU build: selects device/host kernels
+    use_cpu_flags: int = -1  # asm level; this build: selects device/host kernels
     recon_enabled: bool = False
     stat_report: int = 0
 

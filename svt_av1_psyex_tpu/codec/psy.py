@@ -5,7 +5,7 @@ Docs/Appendix-Variance-Boost.md): per-superblock 8x8 source variances ->
 octile-weighted representative variance -> qstep-ratio boost curve ->
 per-SB delta qindex, frame qindex renormalization, and delta_q_res
 selection/snapping. The variance map is a batched reduction (host numpy
-here; the device MD path computes the same 8x8 variances on TPU as part
+here; the device MD path computes the same 8x8 variances on device as part
 of frame analysis); the tiny per-SB scalar pass stays host-side.
 """
 

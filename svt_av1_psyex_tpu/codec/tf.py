@@ -127,15 +127,9 @@ def _temporal_filter_device(center, neighbors, qindex, bit_depth,
             s.append(cen[p])
         stacks.append(np.stack(s))
     decay = np.float32(_decay_px(y, qindex, bit_depth, strength))
-    from ..utils.tunnel import retry_device
-
-    def run():
-        outs = tf_filter(cen, tuple(stacks),
-                         jnp.int32(min(len(neighbors), nb)), decay,
-                         bit_depth=bit_depth, planes_ss=tuple(ss))
-        return [np.asarray(o) for o in outs]
-
-    outs = retry_device(run)
+    outs = [np.asarray(o) for o in tf_filter(
+        cen, tuple(stacks), jnp.int32(min(len(neighbors), nb)), decay,
+        bit_depth=bit_depth, planes_ss=tuple(ss))]
     res = []
     for p in range(len(center)):
         src = np.asarray(center[p])

@@ -10,32 +10,22 @@ from __future__ import annotations
 
 import ctypes
 import struct
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
-_NATIVE = Path(__file__).parent.parent / "native"
-_SHIM_SO = _NATIVE / "libdav1dshim.so"
-_SHIM_SRC = _NATIVE / "dav1d_shim.c"
+from ..native.build import build_library
+
+_SHIM_SRC = Path(__file__).parent.parent / "native" / "dav1d_shim.c"
 
 _lib = None
-
-
-def _build_shim() -> None:
-    subprocess.run(
-        ["gcc", "-O2", "-shared", "-fPIC", str(_SHIM_SRC), "-o", str(_SHIM_SO),
-         "-l:libdav1d.so.6"],
-        check=True,
-    )
 
 
 def _get_lib():
     global _lib
     if _lib is None:
-        if not _SHIM_SO.exists():
-            _build_shim()
-        _lib = ctypes.CDLL(str(_SHIM_SO))
+        _lib = ctypes.CDLL(str(build_library(
+            "dav1dshim", [_SHIM_SRC], ("-O2",), ("-l:libdav1d.so.6",))))
         _lib.shim_decode_ivf.restype = ctypes.c_int
         _lib.shim_decode_ivf.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,

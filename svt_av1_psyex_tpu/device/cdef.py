@@ -14,9 +14,8 @@ The tiny greedy dual strength selection and the RD decision stay on host
 dynamic block lists so shapes stay static across frames.
 
 The group entry point (`cdef_group_device`) batches BOTH kernels over a
-whole group of frames: the host<->device link has a large per-transfer
-cost, so one fetch serves the group (the reference's picture-level
-parallelism axis, enc_handle.c:478).
+whole group of frames, so one dispatch and one fetch serve the group
+(the reference's picture-level parallelism axis, enc_handle.c:478).
 """
 
 from __future__ import annotations
@@ -45,15 +44,19 @@ def _find_dir(blocks: jnp.ndarray, coeff_shift: int):
     """(N, 8, 8) -> (dir (N,), var (N,)). Mirrors ops.cdef.find_dir_batch.
 
     The decoder re-derives dir/var from its recon (cdef.c:152), so this
-    must be INTEGER-EXACT. The 34-bit costs don't fit TPU int32, so each
+    must be INTEGER-EXACT. The 34-bit costs don't fit int32, so each
     cost is kept as an exact (hi, lo) pair with cost = hi*1024 + lo and
     comparisons/differences done pairwise (partials are 8-bit-domain:
     |p| <= 1016, p^2 < 2^20, so hi/lo sums stay < 2^24)."""
     n = blocks.shape[0]
     x = (blocks.reshape(n, 64) >> coeff_shift).astype(jnp.float32) - 128.0
     maps = jnp.asarray(_PARTIAL_MAPS, jnp.float32)  # (8, 64, 15)
-    # f32 matmul is exact here (|partials| <= 1016 << 2^24) and MXU-fast
-    partials = jnp.einsum("np,dpb->dnb", x, maps).astype(jnp.int32)
+    # one-hot f32 matmul, integer-exact: x is an integer in [-128, 127],
+    # maps are 0/1 and |partials| <= 1016 << 2^24. HIGHEST keeps every
+    # backend on full f32 products (no TF32/bf16 operand rounding).
+    partials = jnp.einsum("np,dpb->dnb", x, maps,
+                          precision=jax.lax.Precision.HIGHEST
+                          ).astype(jnp.int32)
     div = np.asarray(_DIV_TABLE, np.int64)
     his, los = [], []
     for d in range(8):
@@ -159,7 +162,7 @@ _SEC_IDX1 = (8, 9, 10, 11)
 
 def _ilog2(x):
     """floor(log2(max(x, 1))) in pure integer ops. The filter output is
-    decoder-visible, so this must be exact on every backend: TPU's f32
+    decoder-visible, so this must be exact on every backend: an f32
     log2 approximation can land just below an integer at exact powers of
     two, flooring one low and shifting the constraint by a full bit
     (seen as +-1-pixel recon diffs vs dav1d at 1080p)."""
@@ -512,8 +515,12 @@ def cdef_group_device(jobs: list, level: int, bit_depth: int):
         dirs_b.append(dirs)
         var_b.append(var)
 
-    h, w = prepped[0][1]["recon_planes"][0].shape
-    hc, wc = (prepped[0][1]["recon_planes"][1].shape if chroma else (0, 0))
+    # write back the coded area only (spec 7.15: CDEF covers the mi
+    # grid); samples beyond it, such as the chroma overhang, stay as
+    # they are
+    mi_rows, mi_cols = prepped[0][1]["mi_rows"], prepped[0][1]["mi_cols"]
+    h, w = mi_rows * 4, mi_cols * 4
+    hc, wc = (mi_rows * 2, mi_cols * 2) if chroma else (0, 0)
     packed_out = np.asarray(cdef_apply_kernel_batch(
         pads_b, jnp.asarray(np.stack(dirs_b)), jnp.asarray(np.stack(var_b)),
         jnp.asarray(np.stack(y_gis)), jnp.asarray(np.stack(uv_gis)),
@@ -521,10 +528,10 @@ def cdef_group_device(jobs: list, level: int, bit_depth: int):
         chroma=chroma, h=h, w=w, hc=hc, wc=wc))
     for row, (i, j, p) in zip(packed_out, prepped):
         rp = j["recon_planes"]
-        rp[0][...] = row[: h * w].reshape(h, w)
+        rp[0][:h, :w] = row[: h * w].reshape(h, w)
         if chroma:
-            rp[1][...] = row[h * w : h * w + hc * wc].reshape(hc, wc)
-            rp[2][...] = row[h * w + hc * wc :].reshape(hc, wc)
+            rp[1][:hc, :wc] = row[h * w : h * w + hc * wc].reshape(hc, wc)
+            rp[2][:hc, :wc] = row[h * w + hc * wc :].reshape(hc, wc)
     return results
 
 

@@ -15,7 +15,7 @@ J, candidate code (intra mode | NEWMV(ref) | zero-MV(ref)), and the MV.
 The host runs the quadtree argmin and a conformant commit pass
 (codec/md_device.py), exactly as the intra-only device path does.
 
-This is the TPU-native reformulation of the reference's inter MD stages
+This is the batched reformulation of the reference's inter MD stages
 (product_coding_loop.c md_stage_0/fast_loop_core for inter classes,
 mode_decision.c candidate injection): instead of per-SB sequential
 candidate walks, every block of the frame evaluates its candidate set in
@@ -85,21 +85,7 @@ def _mc_tiles(ref: jnp.ndarray, mv_y: jnp.ndarray, mv_x: jnp.ndarray,
 def _txrd(resid: jnp.ndarray, blk: int, qp_row, bit_depth: int):
     """Exact-DCT analysis RD of a residual batch:
     (dist, rate, sse, inv_residual)."""
-    from .intra import _use_pallas_fullloop
-
     log_scale = 2 if blk == 64 else (1 if blk == 32 else 0)
-    if _use_pallas_fullloop(blk):
-        # fused VMEM full-loop (same kernel as the intra analysis tier)
-        from ..ops.pallas.fullloop import fullloop
-
-        qp6 = jnp.stack([qp_row[4], qp_row[9],
-                         _rp2(qp_row[1], log_scale),
-                         _rp2(qp_row[6], log_scale),
-                         _rp2(qp_row[0], log_scale),
-                         _rp2(qp_row[5], log_scale)])
-        metrics, inv = fullloop(resid, qp6, blk, log_scale, want_inv=True)
-        return (metrics[:, 0], metrics[:, 1].astype(jnp.int32),
-                metrics[:, 3], inv)
     sse = (resid.astype(jnp.float32) ** 2).sum(axis=(1, 2))
     coeffs = _fwd_dct2d(resid, blk)
     qabs, dq = _quantize_analysis(

@@ -1,12 +1,12 @@
-"""Matmul-form DCTs for the device ANALYSIS tier (MXU path).
+"""Matmul-form DCTs for the device ANALYSIS tier.
 
 The AV1 integer transforms are butterfly networks whose only
 nonlinearities are per-stage roundings; their rounding-free linear map
 is a dense (n, n) matrix.  The analysis tier only *decides* (the
 conformant commit requantizes through the exact integer chain in C), so
-it can run the transforms as float32 matrix products on the MXU instead
-of int32 butterfly gathers on the VPU — the reformulation SURVEY §2.3
-prescribes for the txfm family ("matmul-form butterflies on MXU").
+it can run the transforms as float32 matrix products instead of int32
+butterfly gathers — the reformulation SURVEY §2.3 prescribes for the
+txfm family ("matmul-form butterflies").
 
 Matrices are probed from the reference numpy networks (ops/txfm.py) at
 high amplitude so per-stage rounding vanishes: |error| <= n * 2^-A
@@ -66,14 +66,14 @@ def inv_mats(n: int) -> tuple[np.ndarray, np.ndarray]:
 
 def _sep2d(x: jnp.ndarray, mc: np.ndarray, mr: np.ndarray) -> jnp.ndarray:
     """out[b,i,l] = sum_{j,k} mc[i,j] x[b,j,k] mr[l,k] as TWO flat
-    matmuls with M = B*n — one big MXU-shaped product per pass instead
-    of B tiny batched ones (batched (n,n) dots at HIGHEST precision are
-    MXU-latency-bound: measured 25 ms -> ~1 ms for the 64x64 tier)."""
+    matmuls with M = B*n — one large GEMM per pass instead of B tiny
+    batched ones."""
     b, n, _ = x.shape
     cn_r, cn_c = mr.shape[0], mc.shape[0]
     hi = jax.lax.Precision.HIGHEST
-    # HIGHEST: TPU DEFAULT is a single bf16 pass, which skews the
-    # transform ~1% and decouples device RD decisions from the host
+    # HIGHEST: full f32 products. DEFAULT may round the operands (TF32
+    # on tensor cores, bf16 elsewhere), which skews the transform and
+    # decouples device RD decisions from the host
     t = jnp.dot(x.reshape(b * n, n), jnp.asarray(mr).T,
                 preferred_element_type=jnp.float32, precision=hi)
     t = t.reshape(b, n, cn_r).transpose(0, 2, 1).reshape(b * cn_r, n)

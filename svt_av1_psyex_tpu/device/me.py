@@ -75,8 +75,8 @@ def _shift_sad_field(src: jnp.ndarray, ref: jnp.ndarray, tile: int,
     h, w = src.shape
     rows = jnp.arange(h)
     cols = jnp.arange(w)
-    # pad+dynamic_slice per offset (contiguous copy) beats a clipped-index
-    # whole-frame gather on TPU by a large factor
+    # pad + dynamic_slice per offset: a contiguous copy, not a
+    # clipped-index whole-frame gather
     ref_pad = jnp.pad(ref, rng, mode="edge")
 
     def body(_, off):
@@ -178,14 +178,6 @@ def fullpel_lattice(src: jnp.ndarray, ref: jnp.ndarray, maxpix: int):
 
     def lattice(cy_full, cx_full):
         win, _ = _gather_windows(ref, cy_full, cx_full, 64, R2)
-        from ..ops.pallas.fullloop import use_pallas
-
-        if use_pallas():
-            # VMEM-resident offset sweep (ops/pallas/sad.py): the window
-            # is read from HBM once instead of once per offset
-            from ..ops.pallas.sad import sad_lattice
-
-            return sad_lattice(t1, win)               # (nSB, O2, 8, 8)
 
         def body2(_, off):
             cand = jax.lax.dynamic_slice(win, (0, off[0], off[1]),
@@ -318,12 +310,9 @@ def run_device_me(src: np.ndarray, ref_planes: dict,
     names = sorted(ref_planes)
     refs = np.stack([pad64(np.ascontiguousarray(ref_planes[n]))
                      for n in names])
-    from ..utils.tunnel import retry_device
-
-    rows = retry_device(lambda: np.asarray(
-        me_fullpel(jax.device_put(srcp.astype(np.int32)),
-                   jax.device_put(refs.astype(np.int32)),
-                   bit_depth=bit_depth)))
+    rows = np.asarray(me_fullpel(jax.device_put(srcp.astype(np.int32)),
+                                 jax.device_put(refs.astype(np.int32)),
+                                 bit_depth=bit_depth))
     hp, wp = srcp.shape
     maps = {n: unpack_me(rows[i], hp, wp) for i, n in enumerate(names)}
     return FrameMotionField(maps, hp, wp)

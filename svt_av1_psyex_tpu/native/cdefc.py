@@ -3,9 +3,8 @@
 Same frame contract as ops.cdef.cdef_search_frame / the device variant:
 full-grid padded planes + per-8x8-unit mask, per-candidate MSE search,
 host greedy dual-strength selection (shared helpers), filter apply in
-place. Used on the host side of the split pipeline where the
-host<->device link cost would dominate (small frames); the device path
-(device/cdef.py) serves batched/group and large-frame work.
+place. The default CDEF backend; the device path (device/cdef.py) is
+opt-in (SVT_TPU_DEVICE_CDEF=1).
 """
 
 from __future__ import annotations

@@ -7,45 +7,42 @@ arithmetic coding and the per-txb coefficient emission loop.
 
 Falls back to the pure-Python EntropyEncoder (bitstream/ec.py) when the
 toolchain is unavailable or SVT_TPU_PY_EC=1 is set; both backends are
-held bit-identical by tests/test_native_ec.py.
+held bit-identical by tests/test_native_ec.py. `require_lib` is for
+callers that must not fall back.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
+from .build import build_library
+
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
-_SRC = _NATIVE_DIR / "ecenc.c"
-_SRCS = [_SRC, _NATIVE_DIR / "cdef.c", _NATIVE_DIR / "frame_enc.c",
-         _NATIVE_DIR / "mvp.c", _NATIVE_DIR / "rdoq.c"]
-_SO = Path(__file__).parent / "_ecenc.so"
+_SRCS = [_NATIVE_DIR / "ecenc.c", _NATIVE_DIR / "cdef.c",
+         _NATIVE_DIR / "frame_enc.c", _NATIVE_DIR / "mvp.c",
+         _NATIVE_DIR / "rdoq.c"]
+# -march=native is safe: the build key includes the target it expands to
+FLAGS = ("-O3", "-march=native")
 
 _lib = None
-_lib_failed = False
+_lib_error: Exception | None = None
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 
 
-def _build() -> None:
-    cmd = ["gcc", "-O3", "-march=native", "-shared", "-fPIC",
-           *[str(s) for s in _SRCS], "-o", str(_SO), "-lm"]
-    subprocess.run(cmd, check=True, capture_output=True)
-
-
 def get_lib():
-    global _lib, _lib_failed
-    if _lib is not None or _lib_failed:
+    """The loaded C library, or None when it cannot be built or loaded
+    (callers then take the pure-Python paths)."""
+    global _lib, _lib_error
+    if _lib is not None or _lib_error is not None:
         return _lib
     try:
-        if not _SO.exists() or any(_SO.stat().st_mtime < s.stat().st_mtime
-                                   for s in _SRCS):
-            _build()
-        lib = ctypes.CDLL(str(_SO))
+        lib = ctypes.CDLL(str(build_library("ecenc", _SRCS, FLAGS,
+                                            ("-lm",))))
         lib.svt_ec_create.restype = ctypes.c_void_p
         lib.svt_ec_free.argtypes = [ctypes.c_void_p]
         lib.svt_ec_symbol.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
@@ -74,9 +71,18 @@ def get_lib():
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
             + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3)
         _lib = lib
-    except Exception:
-        _lib_failed = True
+    except Exception as exc:  # no compiler, failed build or load
+        _lib_error = exc
     return _lib
+
+
+def require_lib():
+    """The loaded C library; raises with the build or load error."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError(f"native library unavailable: {_lib_error!r}"
+                           ) from _lib_error
+    return lib
 
 
 def _ptr(arr: np.ndarray):

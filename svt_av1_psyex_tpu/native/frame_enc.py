@@ -5,7 +5,7 @@ coding order — quarter-pel refinement, 8-tap MC, intra prediction from
 recon neighbors, exact fwd/inv transforms, quantize, recon update —
 replacing the per-txb ctypes loop in codec/md_device.py.  Counterpart of
 the reference's Encode Pass (coding_loop.c:1697) batched per frame, per
-SURVEY §7: the TPU decides, the native tail executes.
+SURVEY §7: the device decides, the native tail executes.
 
 Scope matches the device-MD lattice output: NONE/SPLIT partitions, one
 max-rect tx block per plane per leaf, non-directional intra modes,

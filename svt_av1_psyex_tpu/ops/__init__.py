@@ -1,7 +1,6 @@
 """Spec-exact integer reference kernels (numpy, batched).
 
 These are the conformance-critical implementations and the test oracles.
-The TPU analysis-tier counterparts live in svt_av1_psyex_tpu/device/
-(jnp/XLA lattices; MXU matmul DCTs in device/matdct.py) with fused
-Pallas kernels for the hottest chains in ops/pallas/.
+The device analysis-tier counterparts live in svt_av1_psyex_tpu/device/
+(jnp/XLA lattices; matmul-form DCTs in device/matdct.py).
 """

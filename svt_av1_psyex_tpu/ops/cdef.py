@@ -11,7 +11,7 @@ Counterparts in the reference:
     (finish_cdef_search: nb_strengths rd search, damping = 3 + q>>6),
   - enc_mode_config.c:876+ (candidate strength sets per search level).
 
-TPU-first design: all per-8x8 work (direction search via one-hot matmul
+Batched design: all per-8x8 work (direction search via one-hot matmul
 partial sums, 12-tap constrained filtering) is batched over every
 candidate block in the frame at once — no per-block scalar loops.
 """

@@ -9,7 +9,7 @@ Counterparts in the reference:
     143-240 (filter_mask*/flat_mask*/hev_mask/filter4),
     274-310/345-370 (filter6/filter8), 762-785 (filter14).
 
-Design notes (TPU-first rewrite, not a translation):
+Design notes (batched rewrite, not a translation):
   * Levels are constant per plane/direction in our streams
     (loop_filter_delta_enabled=0, no segmentation), so every edge of a
     pass shares one (lim, mblim, hev) triple.

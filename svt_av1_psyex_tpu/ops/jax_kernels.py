@@ -1,15 +1,15 @@
 """JAX device kernels: exact integer transforms + batched intra analysis.
 
-TPU-first design (two tiers, per SURVEY §7):
+Device design (two tiers, per SURVEY §7):
   * analysis tier — batched over all superblocks/tx blocks of a frame,
     evaluating candidate-mode costs in parallel (this file);
   * conformant tier — the same exact integer transform networks as
-    ops/txfm.py, executed as jnp gathers + weighted adds (VPU), batched
+    ops/txfm.py, executed as jnp gathers + weighted adds, batched
     over thousands of blocks; int32 is sufficient for encoder-produced
     coefficient ranges (the C stage-range asserts bound everything < 2^31).
 
 No wavefronts: neighbor-dependent final decisions happen on host; device
-work is frame-batched (SURVEY §5 "TPU-equivalent" table).
+work is frame-batched (SURVEY §5).
 """
 
 from __future__ import annotations
@@ -271,8 +271,7 @@ def frame_intra_analysis(luma: jnp.ndarray,
 
     pred_stack = jnp.stack(preds)  # (M, B, blk, blk)
     resid = (tiles[None] - pred_stack).astype(jnp.int32)
-    # 64x64 SSE fits int32 (255^2 * 4096 < 2^31); use f32 accum on MXU-
-    # friendly path later
+    # 64x64 SSE fits int32 (255^2 * 4096 < 2^31)
     sse = (resid * resid).sum(axis=(2, 3))  # (M, B)
     sad = jnp.abs(resid).sum(axis=(2, 3))
 

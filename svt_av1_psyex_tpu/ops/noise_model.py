@@ -8,7 +8,7 @@ svt_aom_denoise_and_model_run :2280 / pic_analysis_process.c:1398).
 
 Everything is reformulated batched: block extraction and the low-order
 plane fits are one matmul over all blocks, the AR normal equations are
-X^T X over a gathered (pixels, taps) matrix — MXU-shaped work, kept in
+X^T X over a gathered (pixels, taps) matrix — matmul-shaped work, kept in
 numpy here because it runs once per keyframe interval on one frame.
 
 Deviation from the reference: the reference estimates noise as

@@ -5,8 +5,8 @@ sub-processes) are executed from data tables
 (bitstream/tables/txfm_networks.json, see tools/gen_txfm_networks.py).
 Execution is vectorized: arrays are (batch, h, w) int32; every stage is a
 gather + weighted add (+ rounding for cos-weighted butterflies, + clamping
-on the inverse side), so the same formulation maps directly onto the TPU
-VPU in the Pallas port.
+on the inverse side), so the same formulation maps directly onto the
+batched device tier (ops/jax_kernels.py).
 
 2D drivers mirror the normative process:
   inverse: rows first (with 1/sqrt2 pre-scale for 2:1 rect), shift0,

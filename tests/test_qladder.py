@@ -3,7 +3,7 @@
 The reference ladder on a blobs probe at p6 CRF32 (debug-build ground
 truth, 2026-08-19): KF 54, ALT 59, tl1 74, tl2 84, tl3 92, leaves 95-99.
 These tests pin the structural properties (ordering, ranges) rather than
-exact values — the dispenser is a TPU-native redesign, so r0 differs in
+exact values — the dispenser is a batched device redesign, so r0 differs in
 the third digit."""
 
 import numpy as np
